@@ -6,7 +6,7 @@ Counter/list algorithms exactly (src/covisitation/inference.py:128-247,
 src/ranker/regular_candidate_generation.py:138-197); this demo feeds both
 sides identical covisitation tables and frequency statistics and prints the
 agreement table.  The realistic-scale run (1M sessions / 100k aids) lives in
-tools/parity_run.py; its results are recorded in REPORT.md + PARITY_1M.json.
+tools/parity_run.py; its CPU-run results are recorded in PARITY_1M.json.
 
 Run: python examples/09_oracle_parity.py  (CPU, ~2 min)
 """
@@ -17,11 +17,6 @@ import sys
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-
-import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

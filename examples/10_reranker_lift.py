@@ -10,7 +10,7 @@ framework's guarantee-then-refine version of that contract:
 2. alpha and early stopping are selected on a session half disjoint from
    the reported half, so the reported lift carries no selection optimism.
 
-Run:  python examples/10_reranker_lift.py        (CPU, ~3 min)
+Run:  python examples/10_reranker_lift.py
 """
 
 import pathlib
@@ -19,10 +19,6 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import numpy as np
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 from otto_tpu import EVENT_TYPES
 from otto_tpu.config import RankerConfig

@@ -1,4 +1,4 @@
-"""otto_tpu — a TPU-native session-recommender framework for the OTTO
+"""otto_tpu — a JAX session-recommender framework for the OTTO
 multi-objective task (predict clicks/carts/orders per truncated session,
 scored by weighted recall@20 = 0.1*click + 0.3*cart + 0.6*order).
 
@@ -9,11 +9,13 @@ this framework is a library with one engine:
 
 - columnar event arrays + CSR session offsets instead of per-session Python loops
 - every per-session heuristic (recency weights, covisitation votes, frequency
-  padding) recast as batched fixed-shape segment ops that XLA tiles onto the VPU/MXU
+  padding) recast as batched fixed-shape segment ops that XLA tiles onto the
+  accelerator's vector and matrix units
 - covisitation matrices built on-device by a sort/segment-reduce engine
 - fastText/word2vec/MF/CF embedding training as JAX/optax embedding tables,
   shardable row-wise across a device mesh
-- Annoy ANN replaced by an exact fused top-k dot-product scan (Pallas kernel)
+- Annoy ANN replaced by a fused scan-and-select top-k (a Pallas kernel through
+  Triton) with exact float32 rescoring
 - the LightGBM/XGBoost lambdarank rerankers replaced by data-parallel dense
   scoring towers with listwise/LambdaRank losses
 - `jax.sharding.Mesh` + collectives as the scale-out story (the reference had none)

@@ -82,8 +82,8 @@ class DataConfig(ConfigBase):
 @dataclass(frozen=True)
 class MeshConfig(ConfigBase):
     """Device-mesh layout. The reference has no distributed layer (SURVEY §2.10);
-    this is the TPU-native communication backend: named mesh axes lowered by XLA
-    onto ICI collectives."""
+    this is the device communication backend: named mesh axes lowered by XLA
+    onto collectives over the interconnect."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -93,7 +93,7 @@ class MeshConfig(ConfigBase):
 
 @dataclass(frozen=True)
 class SGNSConfig(ConfigBase):
-    """Skip-gram negative-sampling aid embeddings — the TPU replacement for
+    """Skip-gram negative-sampling aid embeddings — the accelerator replacement for
     fastText (models/fasttext/config.yaml: skipgram, dim 32, ws 10, neg 40,
     loss ns, lr .05, epoch 5) and gensim Word2Vec (models/word2vec/config.yaml:
     window 12, negative 40, ns_exponent .75, sample .003)."""
@@ -214,7 +214,7 @@ class RankerConfig(ConfigBase):
 
 @dataclass(frozen=True)
 class GBDTConfig(ConfigBase):
-    """Histogram gradient-boosted trees — the TPU-native re-implementation of
+    """Histogram gradient-boosted trees — the accelerator re-implementation of
     the LightGBM/XGBoost lambdarank engines themselves
     (reference: src/ranker/lgb_trainer.py + models/lightgbm/config.yaml).
 
@@ -249,15 +249,14 @@ class GBDTConfig(ConfigBase):
     seed: int = 42
     chunk_sessions: int = 1024  # lambdarank gradient lax.map chunk
     hist_rows_per_chunk: int = 1 << 18  # histogram streaming chunk
-    # 'matmul': factored one-hot MXU histograms with sibling subtraction
-    # (8.5x the scatter path on a v5e at level-6 shapes); 'scatter': the
-    # naive XLA scatter-add (kept as a numerical oracle)
+    # 'matmul': factored one-hot matmul histograms with sibling subtraction;
+    # 'scatter': the XLA scatter-add (kept as a numerical oracle).  Both are
+    # timed at the reference ranker shape by chip_smoke.py
     hist_impl: str = "matmul"
     # >1 scans that many whole trees per device dispatch (one host round-trip
-    # per segment).  Growth is HBM/MXU-bound, so this only pays off when
-    # per-dispatch latency rivals per-tree compute (small datasets or a
-    # remote-attached device) — and it multiplies XLA compile time by the
-    # segment length.  ES metric cadence follows the segment when > 1.
+    # per segment).  This only pays off when per-dispatch latency rivals
+    # per-tree compute (small datasets) — and it multiplies XLA compile time
+    # by the segment length.  ES metric cadence follows the segment when > 1.
     trees_per_call: int = 1
 
 

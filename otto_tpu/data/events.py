@@ -5,7 +5,7 @@ The reference represents OTTO data as pandas DataFrames of event rows
 src/utilities/dataset_writer_pickle.py:29-60) and re-aggregates them into
 per-session Python lists at every consumer (``groupby('session').agg(list)``).
 
-Here the canonical representation is TPU-shaped from the start:
+Here the canonical representation is accelerator-shaped from the start:
 
 - flat, dtype-tight numpy columns sorted by ``(session, ts, arrival order)``
 - a CSR ``offsets`` array delimiting sessions (no per-session Python objects)

@@ -2,7 +2,7 @@
 
 The reference streams training pairs through the Merlin dataloader, a
 GPU-resident cuDF parquet reader (reference:
-src/matrix_factorization/torch_trainer.py:13-14,315-318).  The TPU-native
+src/matrix_factorization/torch_trainer.py:13-14,315-318).  The JAX
 equivalent is a host input pipeline: batches are sliced from host arrays and
 shipped to the device on a background thread, double-buffered, so the
 transfer overlaps the previous step's compute (JAX dispatch is async — the

@@ -12,7 +12,7 @@ Semantics reproduced from the reference (src/metrics.py:4-61):
   src/covisitation/inference.py:251-257): ``sum(hits) / sum(clip(|labels|, 0, 20))``.
 
 Inputs are fixed-shape padded arrays — predictions ``[S, K]`` and labels
-``[S, M]`` padded with ``-1`` — so everything jits to masked VPU compares with
+``[S, M]`` padded with ``-1`` — so everything jits to masked vector compares with
 no ragged shapes.
 """
 

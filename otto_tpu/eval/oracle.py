@@ -1,7 +1,7 @@
 """Reference-semantics oracle (host-side, per-session Python loops).
 
 A deliberate, literal re-implementation of the reference pipeline's scoring
-logic — NOT the TPU path — used to *measure* (rather than assert) parity of
+logic — NOT the device path — used to *measure* (rather than assert) parity of
 the framework's batched kernels:
 
 - :func:`oracle_heuristic` re-implements the covisitation heuristic
@@ -24,7 +24,7 @@ matches CPython's insertion-order semantics exactly (the subtle part:
 order).  Weights are float64, as in the reference's numpy code.
 
 Used by ``tests/test_oracle_parity.py`` (small-scale exactness) and
-``tools/parity_run.py`` (realistic-scale measured parity for REPORT.md).
+``tools/parity_run.py`` (realistic-scale measured parity, ``PARITY_*.json``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""Dense listwise scoring tower — the TPU replacement for the LightGBM /
+"""Dense listwise scoring tower — the accelerator replacement for the LightGBM /
 XGBoost lambdarank rerankers (reference: src/ranker/lgb_trainer.py,
 xgb_trainer.py, models/lightgbm/config.yaml).
 
 Instead of per-row GBDT inference over exploded candidate pickles, candidates
 stay in their listwise shape ``[sessions, C, F]`` and a small MLP scores all
-candidates of a batch of sessions in one MXU pass.  Losses:
+candidates of a batch of sessions in one matmul pass.  Losses:
 
 - ``lambdarank``: pairwise logistic over within-session (pos, neg) pairs
   weighted by |delta-DCG@k| of swapping them — the LightGBM objective the
@@ -62,7 +62,7 @@ def init_tower(key, n_features: int, hidden_dims, dtype=jnp.float32) -> dict:
 
 
 def tower_forward(params, x, *, dropout_rate=0.0, key=None, compute_dtype=jnp.bfloat16):
-    """x: [..., F] -> scores [...].  Matmuls run in bfloat16 on the MXU with
+    """x: [..., F] -> scores [...].  Matmuls run in bfloat16 on the matrix units with
     float32 accumulation."""
     h = x.astype(compute_dtype)
     n_layers = len([k for k in params if k.startswith("w")])

@@ -8,7 +8,7 @@ models by name (recbole/trainer.py:28-47):
 
 - ``gru`` — GRU4Rec-style recurrent encoder (lax.scan over time).
 - ``transformer`` — SASRec-style causal self-attention encoder; with L=20 the
-  attention is a tiny MXU matmul and the whole block fuses.
+  attention is a tiny matmul and the whole block fuses.
 - ``narm`` — NARM-style attention-GRU: the GRU's hidden states feed an
   additive attention head whose context vector (local encoder) concatenates
   with the final state (global encoder) before the bilinear decode.
@@ -243,7 +243,7 @@ def _encode_stamp(params, seq: jax.Array, mask: jax.Array) -> jax.Array:
 
 def _encode_caser(params, seq: jax.Array, mask: jax.Array) -> jax.Array:
     """Caser encoder.  Horizontal convolutions run as stacked-slice matmuls —
-    for height h the [B, L-h+1, h*D] window tensor hits the MXU as one
+    for height h the [B, L-h+1, h*D] window tensor hits the matrix units as one
     batched matmul instead of an im2col gather; windows extending past the
     session length are zeroed before the time max-pool (activations are
     ReLU >= 0, so zeros never win over a valid window)."""
@@ -311,7 +311,7 @@ def _moe_ffn(moe, h: jax.Array, attn_ok: jax.Array, model_axis) -> jax.Array:
 def _encode_transformer(params, seq: jax.Array, mask: jax.Array) -> jax.Array:
     """SASRec-style causal encoder.  Sessions are right-padded
     (EventStore.pack keep='last'); the session vector is the hidden state at
-    the last valid position.  L is small (20) so attention is one fused MXU
+    the last valid position.  L is small (20) so attention is one fused
     matmul per layer — no flash/ring machinery needed (SURVEY §5.7)."""
     B, L = seq.shape
     x = params["item_emb"][seq] + params["pos_emb"][None, :L]  # [B, L, D]
@@ -369,30 +369,22 @@ class SequenceModel:
         """Top-k items for every session (recbole full_sort_predict + topk,
         PAD row excluded).
 
-        Large catalogs route through the fused compensated-precision Pallas
-        kernel on TPU (f32-accurate scores, measured r=0.991 and ~270x the
-        exact scan's throughput at 1.86M items —
-        :class:`otto_tpu.ops.pallas_retrieval.PallasRetriever`), the hybrid
-        PartialReduce + peel path on CPU; small catalogs use the exact scan.
+        Catalogues large enough for the blocked path
+        (:func:`otto_tpu.ops.retrieval.blocked_fits`) take
+        :func:`otto_tpu.ops.retrieval.topk_blocked`; smaller ones the exact
+        scan.
         """
-        from otto_tpu.ops.retrieval import topk_hybrid
+        from otto_tpu.ops.retrieval import blocked_fits, topk_blocked
 
         vecs = self.encode_sessions(store, batch=batch)
         items = jnp.asarray(np.asarray(self.params["item_emb"])[: self.config.n_aids])
         out = np.zeros((store.n_sessions, k), np.int32)
-        use_fast = self.config.n_aids >= 1 << 16
-        retriever = None
-        if use_fast and jax.default_backend() == "tpu":
-            from otto_tpu.ops.pallas_retrieval import PallasRetriever
-
-            retriever = PallasRetriever(items, metric="dot", precision="compensated")
+        use_blocked = blocked_fits(self.config.n_aids, k)
         for start in range(0, store.n_sessions, batch):
             end = min(start + batch, store.n_sessions)
             q = jnp.asarray(vecs[start:end])
-            if retriever is not None:
-                _, i = retriever.topk(q, k=k, tile=min(256, batch))
-            elif use_fast:
-                _, i = topk_hybrid(q, items, k=k, tile=min(256, batch), metric="dot")
+            if use_blocked:
+                _, i = topk_blocked(q, items, k=k, metric="dot")
             else:
                 _, i = topk_scan(q, items, k=k, block=16384, metric="dot")
             out[start:end] = np.asarray(i)

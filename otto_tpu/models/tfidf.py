@@ -5,11 +5,11 @@ similar sessions are retrieved by cosine similarity of TF-IDF vectors and
 their aids become predictions, with the same >=20-unique-aid recency routing
 as the covisitation model.
 
-TPU-shaped design: instead of a scipy sparse cosine matrix, session vectors
+Accelerator-shaped design: instead of a scipy sparse cosine matrix, session vectors
 live in a dense low-rank space — the sparse TF-IDF matrix is projected by a
 random feature hash [n_aids, d] (sparse random projection preserves cosine),
 and similar sessions come from the exact top-k scan in
-:mod:`otto_tpu.ops.retrieval` over the projected session matrix (MXU matmuls
+:mod:`otto_tpu.ops.retrieval` over the projected session matrix (matmuls
 instead of sparse CPU ops).
 """
 
@@ -102,7 +102,7 @@ def retrieve_similar_session_aids(
     query_batch: int = 4096,
 ) -> np.ndarray:
     """Shared similar-session retrieval: exact top-``n_similar`` corpus
-    sessions per query (MXU dot-product scan), then each query's predictions
+    sessions per query (dot-product scan), then each query's predictions
     are the deduped aids of its similar sessions, most-recent-first."""
     import jax.numpy as jnp
 

@@ -9,11 +9,10 @@ on-device pipeline over the packed event arrays:
 1. :func:`pair_stream` — for a chunk of sessions packed ``[S, T]``, emit every
    ordered within-session pair (i != j) inside the kind's time window as an
    ``(aid_x, aid_y)`` int32 key pair with one weight column per kind (invalid
-   pairs get a sentinel key).  Pure VPU compare/select math on static shapes.
+   pairs get a sentinel key).  Pure elementwise compare/select math on static shapes.
 2. :func:`sort_reduce_rows` — per-session-row 2-key sort of the pair stream
    (weights ride through as sort payloads) and run-length-sum of duplicate
-   keys via segmented scans.  Keys stay as int32 pairs — TPUs have no native
-   int64 and x64 mode is off.
+   keys via segmented scans.  Keys stay as int32 pairs — x64 mode is off.
 3. chunks are merged across the session axis by the host-side accumulator in
    :mod:`otto_tpu.models.covisitation`, and the final per-``aid_x`` top-k rows
    are extracted with :func:`topk_per_source`.
@@ -194,7 +193,7 @@ def prune_per_source(
     This is the lossy half of the bounded-memory build: a pruned pair loses
     its partial weight if it reappears in later chunks.  With ``cap`` several
     times the final top-k the end-table error is negligible (measured in
-    tests/test_covisit_build.py and REPORT.md)."""
+    tests/test_covisit_build.py)."""
     n = len(keys)
     if n == 0:
         return keys, weights

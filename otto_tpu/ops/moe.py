@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN core: top-1 gating, fixed per-expert capacity,
-dense one-hot dispatch/combine matmuls (MXU-friendly — the classic Shazeer
+dense one-hot dispatch/combine matmuls (matmul-friendly — the classic Shazeer
 formulation).
 
 Used two ways:

@@ -1,20 +1,28 @@
-"""Exact top-k retrieval over the item embedding table.
+"""Top-k retrieval over the item embedding table.
 
 Replaces Annoy (C++ approximate NN over 1.86M x 32 vectors, reference:
 src/covisitation/inference.py:58-69, src/ranker/regular_candidate_generation.py:54-70,
-src/gensim_fasttext/inference.py:40-65) with an *exact* blocked scan:
-at OTTO scale a full matmul sweep of the table is a few MFLOP per query —
-trivially MXU-bound — so approximation buys nothing on TPU.
+src/gensim_fasttext/inference.py:40-65) with a sweep of the whole table.
 
 Two implementations:
 
-- :func:`topk_scan` — exact: pure-XLA ``lax.scan`` over item blocks keeping a
-  running top-k (never materializes the full [B, N] score matrix).  Correct
-  but sort-bound: ~1.2k qps at OTTO scale on a v5e chip.
-- :func:`topk_approx` — production path: full-row scoring per query tile
-  reduced with the TPU PartialReduce hardware op (``jax.lax.approx_max_k``).
-  Measured ~100k qps at OTTO scale — HBM bandwidth-bound (speed of light for
-  this op), ~80x the exact scan, with >= ``recall_target`` per-entry recall.
+- :func:`topk_scan` — the exact reference: ``lax.scan`` over item blocks
+  keeping a running top-k, float32 at ``Precision.HIGHEST``.
+- :func:`topk_blocked` — the served path, in three stages:
+
+  1. (Pallas kernel through Triton, :func:`_stage1`) one program scores a
+     tile of queries against a block of ``block`` items in bf16 on the
+     tensor cores (float32 accumulation), reduces every contiguous window of
+     ``SUB`` items to its maximum and keeps the ``SURVIVORS`` best window
+     maxima of the block.  The [queries, items] score matrix never reaches
+     device memory.
+  2. ``lax.top_k`` over the ``n_blocks * SURVIVORS`` survivors of each query.
+  3. the ``k + margin`` winners are rescored exactly in float32 at
+     ``Precision.HIGHEST`` and re-ranked, so returned scores are exact and
+     the bf16 scoring of stage 1 only decides which items survive.
+
+  A true top-k item is missed only if a better top-k item shares its
+  ``SUB``-item window, or if ``SURVIVORS`` better windows share its block.
 
 Metrics:
 - ``dot``       score = q . x
@@ -31,8 +39,17 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plt
 
 NEG = jnp.float32(-3.4e38)
+HIGHEST = jax.lax.Precision.HIGHEST
+
+BLOCK = 4096     # items per stage-1 program
+SUB = 32         # items per window (one max each)
+TILE_Q = 128     # queries per stage-1 program
+SURVIVORS = 4    # window maxima each program keeps per query
+NUM_WARPS = 4
 
 
 def _pad_items(items: jax.Array, block: int):
@@ -46,7 +63,7 @@ def _pad_items(items: jax.Array, block: int):
 @partial(jax.jit, static_argnames=("k", "block", "metric"))
 def topk_scan(queries: jax.Array, items: jax.Array, k: int, block: int = 8192,
               metric: str = "dot"):
-    """Blocked running-top-k scan (XLA).
+    """Blocked running-top-k scan (XLA), exact in float32.
 
     queries: [B, D] float; items: [N, D] float.
     """
@@ -65,7 +82,8 @@ def topk_scan(queries: jax.Array, items: jax.Array, k: int, block: int = 8192,
     def step(carry, inp):
         top_s, top_i = carry
         blk, blk_sq, blk_idx = inp
-        s = jnp.dot(q, blk.T.astype(jnp.float32), preferred_element_type=jnp.float32)
+        s = jnp.dot(q, blk.T.astype(jnp.float32), precision=HIGHEST,
+                    preferred_element_type=jnp.float32)
         if metric == "euclidean":
             s = 2.0 * s - blk_sq[None, :]
         idx = blk_idx * block + jnp.arange(block, dtype=jnp.int32)[None, :]
@@ -83,6 +101,161 @@ def topk_scan(queries: jax.Array, items: jax.Array, k: int, block: int = 8192,
     return top_s, top_i
 
 
+def n_candidates(k: int) -> int:
+    """Stage-2 winners rescored in float32: ``k`` plus a margin that absorbs
+    the bf16 rank errors of stage 1."""
+    return k + max(8, k // 4)
+
+
+def stage1_block(n_items: int, k: int) -> int:
+    """Items per stage-1 program: the largest power of two up to ``BLOCK``
+    that still cuts the table into ``2 * n_candidates(k)`` blocks, so a block
+    holds about half a top-k item and ``SURVIVORS`` per block lose almost
+    none.  At least ``SURVIVORS`` windows."""
+    target = n_items // (2 * n_candidates(k))
+    return min(BLOCK, max(SUB * SURVIVORS, 1 << max(target.bit_length() - 1, 0)))
+
+
+def blocked_fits(n_items: int, k: int) -> bool:
+    """Whether :func:`topk_blocked` serves a table of ``n_items`` rows.  Two
+    top-k items sharing a ``SUB``-item window cost about ``k * SUB / 2N`` of
+    recall; the bound keeps that under 0.5%.  Smaller tables take the exact
+    :func:`topk_scan`."""
+    return n_items >= 100 * SUB * n_candidates(k)
+
+
+def _stage1_kernel(q_ref, it_ref, bias_ref, *out_refs, sub, survivors):
+    """q_ref [TQ, D] x it_ref [IB, D] -> the ``survivors`` best window maxima
+    (value, global item index) of each query over this item block, sorted
+    descending, one output ref per rank.
+
+    The block is walked in ``sub``-item windows: one [TQ, sub] bf16 product
+    on the tensor cores, the epilogue subtracts ``bias`` (||x||^2 for
+    euclidean, 0 for dot, +inf on padding rows), and the window's maximum is
+    inserted into the running sorted survivor list held in registers."""
+    val_refs, idx_refs = out_refs[:survivors], out_refs[survivors:]
+    tq = q_ref.shape[0]
+    ib = it_ref.shape[0]
+    q = q_ref[...]
+    base = pl.program_id(1) * ib
+
+    def window(t, carry):
+        tops, idxs = carry
+        start = pl.multiple_of(t * sub, sub)
+        x = it_ref[pl.ds(start, sub), :]
+        s = pl.dot(q, x, trans_b=True) - bias_ref[pl.ds(start, sub)][None, :]
+        v = jnp.max(s, axis=1)
+        i = jnp.argmax(s, axis=1).astype(jnp.int32) + base + start
+        new_tops, new_idxs = [], []
+        for top, idx in zip(tops, idxs):
+            better = v > top
+            new_tops.append(jnp.where(better, v, top))
+            new_idxs.append(jnp.where(better, i, idx))
+            v, i = jnp.where(better, top, v), jnp.where(better, idx, i)
+        return tuple(new_tops), tuple(new_idxs)
+
+    init = (tuple(jnp.full((tq,), -jnp.inf, jnp.float32) for _ in range(survivors)),
+            tuple(jnp.full((tq,), -1, jnp.int32) for _ in range(survivors)))
+    tops, idxs = jax.lax.fori_loop(0, ib // sub, window, init)
+    for r in range(survivors):
+        val_refs[r][...] = tops[r]
+        idx_refs[r][...] = idxs[r]
+
+
+def _stage1(q, table, bias, *, block, interpret):
+    """Pallas stage 1: [Bp, D] bf16 queries x [Np, D] bf16 table -> survivors
+    (values [Bp, NB*R] f32, item indices [Bp, NB*R] int32)."""
+    bp, d = q.shape
+    n_blocks = table.shape[0] // block
+    tile = min(TILE_Q, bp)
+    outs = pl.pallas_call(
+        partial(_stage1_kernel, sub=SUB, survivors=SURVIVORS),
+        # query tiles vary fastest, so the programs that share an item block
+        # run together and read it from L2
+        grid=(bp // tile, n_blocks),
+        in_specs=[
+            pl.BlockSpec((tile, d), lambda i, j: (i, 0)),
+            pl.BlockSpec((block, d), lambda i, j: (j, 0)),
+            pl.BlockSpec((block,), lambda i, j: (j,)),
+        ],
+        out_specs=[pl.BlockSpec((None, tile), lambda i, j: (j, i))] * (2 * SURVIVORS),
+        out_shape=([jax.ShapeDtypeStruct((n_blocks, bp), jnp.float32)] * SURVIVORS
+                   + [jax.ShapeDtypeStruct((n_blocks, bp), jnp.int32)] * SURVIVORS),
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=3),
+        interpret=interpret,
+        name="retrieval_stage1",
+    )(q, table, bias)
+    vals = jnp.stack(outs[:SURVIVORS], axis=-1)  # [NB, Bp, R]
+    idx = jnp.stack(outs[SURVIVORS:], axis=-1)
+    return (vals.transpose(1, 0, 2).reshape(bp, -1),
+            idx.transpose(1, 0, 2).reshape(bp, -1))
+
+
+def stage1_reference(q, table, bias, *, block):
+    """Plain-XLA stage 1 with the kernel's semantics: materializes the
+    [Bp, Np] scores, takes each window's max and the block's top
+    ``SURVIVORS`` window maxima."""
+    bp = q.shape[0]
+    n_blocks = table.shape[0] // block
+    s = jnp.dot(q, table.T, preferred_element_type=jnp.float32) - bias[None, :]
+    w = s.reshape(bp, -1, SUB)
+    v = jnp.max(w, axis=2)
+    a = jnp.argmax(w, axis=2).astype(jnp.int32) + jnp.arange(
+        w.shape[1], dtype=jnp.int32)[None, :] * SUB
+    v = v.reshape(bp, n_blocks, block // SUB)
+    a = a.reshape(bp, n_blocks, block // SUB)
+    tv, tp = jax.lax.top_k(v, SURVIVORS)
+    ti = jnp.take_along_axis(a, tp, axis=2)
+    return tv.reshape(bp, -1), ti.reshape(bp, -1)
+
+
+@partial(jax.jit, static_argnames=("k", "metric", "block", "interpret", "reference"))
+def topk_blocked(queries: jax.Array, items: jax.Array, k: int, metric: str = "dot",
+                 block: int | None = None, interpret: bool = False,
+                 reference: bool = False):
+    """Served top-k (module docstring): fused stage-1 kernel, ``top_k`` over
+    the survivors, exact float32 rescoring of ``n_candidates(k)`` winners.
+
+    queries [B, D], items [N, D]; serving callers check ``blocked_fits``.
+    ``block`` defaults to :func:`stage1_block`.  ``reference=True`` runs
+    :func:`stage1_reference` in place of the kernel.  Returns (scores [B, k],
+    indices [B, k]) sorted descending.
+    """
+    b, d = queries.shape
+    n = items.shape[0]
+    block = block or stage1_block(n, k)
+    if (n // block) * SURVIVORS < n_candidates(k):
+        raise ValueError(f"{n} rows in blocks of {block} leave too few "
+                         f"survivors for k={k}")
+    itf = items.astype(jnp.float32)
+    sq = jnp.sum(itf * itf, axis=1)
+    table, _ = _pad_items(items.astype(jnp.bfloat16), block)
+    bias = jnp.zeros((n,), jnp.float32) if metric == "dot" else sq
+    bias = jnp.concatenate([bias, jnp.full((table.shape[0] - n,), jnp.inf, jnp.float32)])
+
+    qf = queries.astype(jnp.float32)
+    scale = 2.0 if metric == "euclidean" else 1.0
+    tile = TILE_Q if b >= TILE_Q else max(16, 1 << (b - 1).bit_length())
+    q1 = jnp.pad((scale * qf).astype(jnp.bfloat16), ((0, (-b) % tile), (0, 0)))
+    if reference:
+        vals, idx = stage1_reference(q1, table, bias, block=block)
+    else:
+        vals, idx = _stage1(q1, table, bias, block=block, interpret=interpret)
+    vals, idx = vals[:b], idx[:b]
+
+    top_v, pos = jax.lax.top_k(vals, n_candidates(k))
+    cand = jnp.take_along_axis(idx, pos, axis=1)
+    live = (top_v > -jnp.inf) & (cand >= 0) & (cand < n)
+    cand = jnp.where(live, cand, 0)
+    s = jnp.einsum("bd,bkd->bk", qf, itf[cand], precision=HIGHEST)
+    if metric == "euclidean":
+        s = 2.0 * s - sq[cand]
+    s = jnp.where(live, s, NEG)
+    top_s, p = jax.lax.top_k(s, k)
+    top_i = jnp.take_along_axis(cand, p, axis=1)
+    return top_s, jnp.where(top_s > NEG / 2, top_i, -1)
+
+
 def build_neighbor_table(
     embeddings: np.ndarray,
     k: int,
@@ -92,70 +265,34 @@ def build_neighbor_table(
     block: int = 16384,
     scores_out: bool = False,
     exact: bool = False,
-    backend: str | None = None,
+    interpret: bool = False,
 ):
     """All-items kNN table: for every aid, its top-k nearest aids.
 
     Replaces the reference's per-query ``annoy.get_nns_by_item`` with one
     batched sweep; returns int32 [N, k] (+ float32 scores when requested).
     ``exclude_self`` drops the query aid itself from its row (the reference
-    skips neighbor 0 — inference.py:167).  ``backend`` (default: "compensated"
-    on TPU, "hybrid" elsewhere — the fastest r>=0.99 configuration per
-    backend; measured at OTTO scale on a v5e: compensated 288k q/s r=0.991 vs
-    hybrid 120k q/s r=0.997): "hybrid" (PartialReduce + pallas peel
-    aggregation, f32 scores), "approx" (PartialReduce + XLA aggregation),
-    "pallas" (fused
-    packed windowed-max kernel over a bf16 table,
-    :mod:`otto_tpu.ops.pallas_retrieval`), "compensated" (the fused kernel
-    over the hi/lo error-compensated bf16 table — f32-accurate scores at
-    bf16 matmul cost, see ``PallasRetriever(precision="compensated")``),
-    "int8" (hybrid over a
-    per-row-quantized int8 table — 1/4 the table HBM footprint; measured
-    r=0.981 and 83k q/s vs the f32 hybrid's r=0.997 / 131k q/s at OTTO
-    scale on a v5e, so it is a *memory* option, not a speed one: use it
-    when the table must coexist with a large model); ``exact=True``
-    overrides with the exact blocked scan.
+    skips neighbor 0 — inference.py:167).  Tables large enough for
+    :func:`topk_blocked` (``blocked_fits``) take it; smaller ones, or
+    ``exact=True``, take the exact :func:`topk_scan` with ``block``-row scan
+    blocks.
     """
-    if backend is None:
-        # the compensated/Pallas default compiles only for Mosaic TPU; any
-        # other backend (cpu, gpu, ...) gets the pure-XLA hybrid path
-        backend = "compensated" if jax.default_backend() == "tpu" else "hybrid"
     n = embeddings.shape[0]
     fetch = k + 1 if exclude_self else k
+    use_blocked = not exact and blocked_fits(n, fetch)
     out = np.empty((n, k), np.int32)
     out_s = np.empty((n, k), np.float32) if scores_out else None
     items = jnp.asarray(embeddings)
-    retriever = None
-    q8table = None
-    if backend == "int8" and not exact:
-        q8table = quantize_items_int8(items)
-    if backend in ("pallas", "compensated") and not exact:
-        from otto_tpu.ops.pallas_retrieval import PallasRetriever
-
-        retriever = PallasRetriever(
-            items, metric=metric,
-            precision="compensated" if backend == "compensated" else "single",
-            interpret=jax.default_backend() == "cpu",  # Mosaic needs a TPU
-        )
     for start in range(0, n, query_batch):
         end = min(start + query_batch, n)
         q = items[start:end]
         pad = query_batch - (end - start)
         if pad:
             q = jnp.concatenate([q, jnp.zeros((pad, q.shape[1]), q.dtype)], axis=0)
-        if exact:
-            s, i = topk_scan(q, items, k=fetch, block=block, metric=metric)
-        elif retriever is not None:
-            s, i = retriever.topk(q, k=fetch)
-        elif q8table is not None:
-            s, i = topk_hybrid_int8(q, *q8table, k=fetch, metric=metric,
-                                    tile=min(256, query_batch))
-        elif backend == "hybrid":
-            s, i = topk_hybrid(q, items, k=fetch, metric=metric,
-                               tile=min(256, query_batch))
+        if use_blocked:
+            s, i = topk_blocked(q, items, k=fetch, metric=metric, interpret=interpret)
         else:
-            s, i = topk_approx(q, items, k=fetch, metric=metric,
-                               tile=min(256, query_batch))
+            s, i = topk_scan(q, items, k=fetch, block=block, metric=metric)
         s = np.asarray(s[: end - start])
         i = np.asarray(i[: end - start])
         if exclude_self:
@@ -173,198 +310,3 @@ def build_neighbor_table(
             if scores_out:
                 out_s[start:end] = s[:, :k]
     return (out, out_s) if scores_out else out
-
-
-@partial(jax.jit, static_argnames=("k", "tile", "metric", "recall_target",
-                                   "rounds", "interpret"))
-def topk_hybrid(queries: jax.Array, items: jax.Array, k: int, tile: int = 256,
-                metric: str = "dot", recall_target: float = 0.99,
-                rounds: int = 6, interpret: bool | None = None):
-    """PartialReduce + peel selection: full-precision top-k at ~2x topk_approx.
-
-    ``topk_approx``'s cost is dominated not by the matmul or the PartialReduce
-    hardware reduction but by its *aggregation*: an exact top-k of the ~5k
-    reduced values per query, which XLA lowers to a full row sort (~9 ms at
-    [2048, 4950]).  Here the reduction keeps the unsorted window maxima
-    (``aggregate_to_topk=False``) and the aggregation runs through the Pallas
-    peel kernel (:func:`otto_tpu.ops.row_topk.peel_rows`, ~0.5 ms) + a small
-    sort.  Scores stay float32-exact end to end; structural recall is the
-    PartialReduce guarantee times the peel tail bound (~(k*128/(l*R))-ish,
-    negligible at rounds=12) — measured 0.996 at OTTO scale, k=100.
-    """
-    from otto_tpu.ops.row_topk import peel_rows
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"  # Mosaic needs a TPU
-    B, D = queries.shape
-    n = items.shape[0]
-    pad_q = (-B) % tile
-    q = queries
-    if pad_q:
-        q = jnp.concatenate([q, jnp.zeros((pad_q, D), q.dtype)], axis=0)
-    compute_dt = jnp.bfloat16 if items.dtype == jnp.bfloat16 else jnp.float32
-    tiles = q.reshape(-1, tile, D).astype(compute_dt)
-
-    if metric == "euclidean":
-        sq = jnp.sum(items.astype(jnp.float32) ** 2, axis=1)
-    else:
-        sq = None
-
-    def one_tile(carry, qt):
-        s = jnp.dot(qt, items.T, preferred_element_type=jnp.float32)
-        if metric == "euclidean":
-            s = 2.0 * s - sq[None, :]
-        rs, ri = jax.lax.approx_max_k(s, k, recall_target=recall_target,
-                                      aggregate_to_topk=False)
-        return carry, (rs, ri.astype(jnp.int32))
-
-    _, (rs, ri) = jax.lax.scan(one_tile, 0, tiles)
-    l = rs.shape[-1]
-    rs = rs.reshape(-1, l)
-    ri = ri.reshape(-1, l)
-    b_all = rs.shape[0]
-
-    pad_l = (-l) % 128
-    if pad_l:
-        rs = jnp.concatenate([rs, jnp.full((b_all, pad_l), NEG, rs.dtype)], axis=1)
-    rounds = min(rounds, k)
-    # The peel aggregation relies on approx_max_k's TPU PartialReduce layout
-    # (window maxima scattered across 128-lane windows).  The CPU fallback
-    # returns globally *sorted* values — every top hit in window 0 — which
-    # the per-window peel cannot recover; interpret mode takes plain top_k.
-    if interpret or rounds * ((l + pad_l) // 128) < k or b_all % 32:
-        top_s, pos = jax.lax.top_k(rs, k)  # degenerate shapes: plain sort
-    else:
-        vals, cols = peel_rows(rs, rounds, row_block=32, interpret=interpret)
-        neg_keys, pos_sorted = jax.lax.sort_key_val(-vals, cols, dimension=1)
-        top_s = -neg_keys[:, :k]
-        pos = pos_sorted[:, :k]
-    top_i = jnp.take_along_axis(ri, jnp.minimum(pos, l - 1), axis=1)
-    top_i = jnp.where(top_s > NEG / 2, top_i, -1)
-    return top_s[:B], top_i[:B]
-
-
-def quantize_items_int8(items):
-    """Per-row symmetric int8 quantization of the item table: returns
-    ``(q8 [N, D] int8, scale [N] float32, sq [N] float32)`` with
-    ``x[i] ≈ q8[i] * scale[i]`` and ``sq[i] = ||x[i]||^2`` kept exact in
-    float32 (for euclidean ranking).  Quarters the table's HBM footprint vs
-    float32 (halves vs bfloat16) and moves the scoring matmul onto the MXU's
-    int8 path (2x the bf16 MAC rate on v5e)."""
-    x = jnp.asarray(items, jnp.float32)
-    scale = jnp.maximum(jnp.max(jnp.abs(x), axis=1), 1e-30) / 127.0
-    q8 = jnp.clip(jnp.round(x / scale[:, None]), -127, 127).astype(jnp.int8)
-    return q8, scale, jnp.sum(x * x, axis=1)
-
-
-@partial(jax.jit, static_argnames=("k", "tile", "metric", "recall_target",
-                                   "rounds", "interpret"))
-def topk_hybrid_int8(queries: jax.Array, q8: jax.Array, scale: jax.Array,
-                     sq: jax.Array, k: int, tile: int = 256,
-                     metric: str = "dot", recall_target: float = 0.99,
-                     rounds: int = 6, interpret: bool | None = None):
-    """:func:`topk_hybrid` over an int8-quantized item table (from
-    :func:`quantize_items_int8`).  Queries quantize per-row on the fly; the
-    int8xint8->int32 tile matmul rescales to float32 as
-    ``s = (q8_q . q8_x) * scale_q * scale_x`` (dot) or ``2 s - ||x||^2``
-    (euclidean, exact f32 norms).  Ranking error is the product-quantization
-    rounding (~1/127 relative per side): measured recall@100 0.981 vs the
-    exact f32 scan at OTTO scale (1.86M x 32) — fine where retrieval feeds
-    a voting / reranking stage that absorbs tail swaps (every consumer in
-    this framework does).  Measured 83k q/s on a v5e vs 131k for the f32
-    hybrid: the per-item rescale + bias are full-width [B, N] VPU passes
-    that XLA cannot fold into the int8 matmul, so this path trades ~1.6x
-    throughput for a 4x smaller table footprint — use when HBM is the
-    constraint, not time."""
-    from otto_tpu.ops.row_topk import peel_rows
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"  # Mosaic needs a TPU
-    B, D = queries.shape
-    pad_q = (-B) % tile
-    q = jnp.asarray(queries, jnp.float32)
-    if pad_q:
-        q = jnp.concatenate([q, jnp.zeros((pad_q, D), q.dtype)], axis=0)
-    qs = jnp.maximum(jnp.max(jnp.abs(q), axis=1), 1e-30) / 127.0
-    q8q = jnp.clip(jnp.round(q / qs[:, None]), -127, 127).astype(jnp.int8)
-    tiles = q8q.reshape(-1, tile, D)
-    tile_qs = qs.reshape(-1, tile)
-
-    def one_tile(carry, inp):
-        qt, qst = inp
-        s32 = jax.lax.dot_general(
-            qt, q8.T, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        s = s32.astype(jnp.float32) * (qst[:, None] * scale[None, :])
-        if metric == "euclidean":
-            s = 2.0 * s - sq[None, :]
-        rs, ri = jax.lax.approx_max_k(s, k, recall_target=recall_target,
-                                      aggregate_to_topk=False)
-        return carry, (rs, ri.astype(jnp.int32))
-
-    _, (rs, ri) = jax.lax.scan(one_tile, 0, (tiles, tile_qs))
-    l = rs.shape[-1]
-    rs = rs.reshape(-1, l)
-    ri = ri.reshape(-1, l)
-    b_all = rs.shape[0]
-    pad_l = (-l) % 128
-    if pad_l:
-        rs = jnp.concatenate([rs, jnp.full((b_all, pad_l), NEG, rs.dtype)], axis=1)
-    rounds = min(rounds, k)
-    # see topk_hybrid: the CPU approx_max_k fallback is sorted, peel is not
-    # applicable there
-    if interpret or rounds * ((l + pad_l) // 128) < k or b_all % 32:
-        top_s, pos = jax.lax.top_k(rs, k)
-    else:
-        vals, cols = peel_rows(rs, rounds, row_block=32, interpret=interpret)
-        neg_keys, pos_sorted = jax.lax.sort_key_val(-vals, cols, dimension=1)
-        top_s = -neg_keys[:, :k]
-        pos = pos_sorted[:, :k]
-    top_i = jnp.take_along_axis(ri, jnp.minimum(pos, l - 1), axis=1)
-    top_i = jnp.where(top_s > NEG / 2, top_i, -1)
-    return top_s[:B], top_i[:B]
-
-
-@partial(jax.jit, static_argnames=("k", "tile", "metric", "recall_target"))
-def topk_approx(queries: jax.Array, items: jax.Array, k: int, tile: int = 256,
-                metric: str = "dot", recall_target: float = 0.99):
-    """HBM-speed-of-light top-k via the TPU PartialReduce op.
-
-    Scores each query tile against the *full* item table in one matmul and
-    reduces with ``jax.lax.approx_max_k`` — measured ~80x faster than the
-    exact blocked scan at OTTO scale (the exact scan's per-block sort costs
-    ~100x the matmul; PartialReduce is a dedicated hardware unit).  "Approx"
-    means entries can be *missed* with probability ~(1 - recall_target);
-    returned scores are exact.  Use :func:`topk_scan` when exactness is
-    required.
-
-    queries [B, D] (B padded up to a tile multiple internally), items [N, D].
-    Returns (scores [B, k], indices [B, k]) sorted descending.
-    """
-    B, D = queries.shape
-    n = items.shape[0]
-    pad_q = (-B) % tile
-    q = queries
-    if pad_q:
-        q = jnp.concatenate([q, jnp.zeros((pad_q, D), q.dtype)], axis=0)
-    # bfloat16 item tables halve the HBM table traffic; scores still
-    # accumulate in float32 on the MXU
-    compute_dt = jnp.bfloat16 if items.dtype == jnp.bfloat16 else jnp.float32
-    tiles = q.reshape(-1, tile, D).astype(compute_dt)
-
-    if metric == "euclidean":
-        sq = jnp.sum(items.astype(jnp.float32) ** 2, axis=1)
-    else:
-        sq = None
-
-    def one_tile(carry, qt):
-        s = jnp.dot(qt, items.T, preferred_element_type=jnp.float32)
-        if metric == "euclidean":
-            s = 2.0 * s - sq[None, :]
-        bs, bi = jax.lax.approx_max_k(s, k, recall_target=recall_target)
-        return carry, (bs, bi.astype(jnp.int32))
-
-    _, (ts, ti) = jax.lax.scan(one_tile, 0, tiles)
-    ts = ts.reshape(-1, k)[:B]
-    ti = ti.reshape(-1, k)[:B]
-    return ts, ti

@@ -8,7 +8,7 @@ run head, so rounding error is confined to the run itself.
 
 The combine op ``(a, fa) ⊕ (b, fb) = (fb ? b : a + b, fa | fb)`` is
 associative, which lets ``jax.lax.associative_scan`` parallelize it (log-depth
-on the VPU).
+on the vector units).
 """
 
 from __future__ import annotations
@@ -59,10 +59,8 @@ def run_totals(values: jax.Array, head: jax.Array, axis: int = 0) -> jax.Array:
     """Per-position total of the containing run (same value across the run).
 
     Segmented cumsum, then each run's *last* prefix value is propagated
-    backward over the run with a reversed propagate-first scan.  (An earlier
-    version gathered ``seg[run_last]`` with ``take_along_axis`` — a full-width
-    lane gather costs ~21 ms at [2048, 1024] on a v5e chip, ~60x the two scans
-    used here.)
+    backward over the run with a reversed propagate-first scan (in place of
+    a full-width ``take_along_axis`` gather of ``seg[run_last]``).
     """
     seg = segmented_cumsum(values, head, axis=axis)
     flags = jnp.broadcast_to(head, values.shape)

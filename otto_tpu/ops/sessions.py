@@ -14,7 +14,7 @@ Here each becomes a masked O(L^2) comparison kernel over packed ``[S, L]``
 arrays: the pairwise aid-equality matrix is computed once and reused for
 first/last-occurrence detection and per-aid weight aggregation.  L is the
 (bucketed) max session length, so XLA sees only static shapes and fuses the
-whole thing into a handful of VPU loops.  Ties are broken exactly like the
+whole thing into a handful of vector loops.  Ties are broken exactly like the
 reference: ``Counter.most_common`` / ``sorted`` are stable w.r.t. first
 insertion, i.e. first-occurrence position ascending.
 """

@@ -1,7 +1,7 @@
 """Data-parallel training for the ranking tower.
 
 Parameters are replicated; the session batch is sharded over the ``data``
-mesh axis; gradients are ``psum``-averaged over ICI.  This is the
+mesh axis; gradients are ``psum``-averaged over the interconnect.  This is the
 data-parallelism the reference lacks entirely (SURVEY §2.10: no DDP)."""
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def make_dp_sequence_step(mesh: Mesh, optimizer, data_axis: str = "data"):
     """Data-parallel training step for the sequential recommender (GRU or
     transformer — dispatch follows the param pytree): the (seq, mask, target,
     negatives) batch shards over the ``data`` axis, parameters replicate,
-    gradients pmean over ICI.  Same sampled-softmax objective as
+    gradients pmean over the interconnect.  Same sampled-softmax objective as
     models.sequence.train_sequence_model."""
     import jax.numpy as jnp
 
@@ -88,8 +88,8 @@ def make_dp_gbdt_grow(mesh: Mesh, *, depth: int, n_bins: int,
                       hist_chunk: int = 1 << 18, data_axis: str = "data",
                       hist_impl: str = "matmul"):
     """Data-parallel GBDT tree growth: rows shard over ``data``; each device
-    builds local histograms and one ``psum`` per level merges them over ICI
-    (bytes per level = nodes * features * bins * 3 * 4, independent of row
+    builds local histograms and one ``psum`` per level merges them over the
+    interconnect (bytes per level = nodes * features * bins * 3 * 4, independent of row
     count); split search runs redundantly so every device grows the identical
     tree; rows route locally.  The reference's LightGBM/XGBoost engines are
     single-node OpenMP — this is the scale-out they lack.

@@ -5,7 +5,7 @@ The reference has nothing like this (SURVEY §2.10); it completes the
 framework's parallelism inventory (dp / tp / sp / pp / ep).  The block is a
 drop-in replacement for a transformer FFN or a ranking-tower layer: top-1
 gating, fixed per-expert capacity, dense one-hot dispatch/combine matmuls
-(MXU-friendly — the classic Shazeer formulation), and a single ``psum`` to
+(matmul-friendly — the classic Shazeer formulation), and a single ``psum`` to
 combine expert outputs.
 
 The MoE core (gating/dispatch/combine) lives in :mod:`otto_tpu.ops.moe`

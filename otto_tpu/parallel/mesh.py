@@ -1,8 +1,8 @@
 """Device mesh construction and sharding helpers.
 
 The reference has no distributed layer at all (SURVEY §2.10: single GPU, no
-NCCL/MPI; scale-out faked with file chunking).  This module is the TPU-native
-communication backend it lacked: a named ``jax.sharding.Mesh`` over ICI with
+NCCL/MPI; scale-out faked with file chunking).  This module is the device
+communication backend it lacked: a named ``jax.sharding.Mesh`` with
 ``('data', 'model')`` axes; collectives are expressed with ``shard_map`` +
 ``psum``/``all_gather`` and lowered by XLA onto the interconnect.
 """
@@ -34,7 +34,8 @@ def make_mesh3d(data_parallel: int, pipeline_parallel: int, tensor_parallel: int
     """Three-axis mesh for composed data x pipeline x tensor parallelism
     (parallel/model_parallel.py::make_pp_tp_sequence_step).  Axis order puts
     tensor parallelism innermost — on hardware the fastest-varying mesh axis
-    maps to the tightest ICI neighborhood, where tp's per-layer psums live."""
+    maps to the tightest interconnect neighborhood, where tp's per-layer
+    psums live."""
     devices = list(devices if devices is not None else jax.devices())
     n = data_parallel * pipeline_parallel * tensor_parallel
     if n > len(devices):

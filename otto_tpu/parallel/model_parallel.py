@@ -9,7 +9,7 @@ row-sharded embedding tables (parallel/sharded_embedding.py):
 - **Tensor parallelism** (:func:`make_tp_sequence_step`) — Megatron-style:
   attention heads and the FFN hidden dimension shard over the ``model``
   axis; one ``psum`` after the attention output projection and one after
-  the FFN down-projection per layer ride ICI.
+  the FFN down-projection per layer ride the interconnect.
 - **Sequence parallelism** (``sequence_parallel=True``) — the LN/residual
   regions between the sharded matmuls keep activations sharded along the
   sequence axis; each layer's two ``psum``\\ s become
@@ -179,7 +179,7 @@ def tp_encode(params, seq, mask, *, mp: int, model_axis: str = "model",
     drops from O(n_layers) blocks to O(1) at ~1/3 more block FLOPs, the
     standard trade once B*L*D outgrows VMEM/HBM headroom.  Collectives
     inside the block (psum / all_gather / psum_scatter) replay in the
-    recompute, which XLA schedules on ICI like any forward collective."""
+    recompute, which XLA schedules on the interconnect like any forward collective."""
     B, L = seq.shape
     x = params["item_emb"][seq] + params["pos_emb"][None, :L]
     x = jnp.where(mask[:, :, None], x, 0.0)
@@ -389,8 +389,8 @@ def make_pp_tp_sequence_step(mesh: Mesh, optimizer, *, n_micro: int,
     stages pipeline over ``pipe`` (GPipe microbatch schedule, ``ppermute``
     hops), and within every stage attention heads / FFN hidden shard over
     ``model`` (Megatron tensor parallelism, optional sequence parallelism).
-    This is the composition a real pod runs: tp inside a chip cluster where
-    ICI is fastest, pp across clusters, dp across replicas — the reference
+    This is the composition a large cluster runs: tp inside a node where
+    the interconnect is fastest, pp across clusters, dp across replicas — the reference
     (single GPU, SURVEY 2.10) has no analog.
 
     Params use :func:`stack_pipeline_params` + :func:`pp_tp_param_specs`;

@@ -5,7 +5,7 @@ This is the model-parallel story for the only tensors at OTTO scale worth
 sharding: the ~1.86M-row aid/session embedding tables (the reference holds
 them whole on one GPU — torch_modules.py:28-29).  Rows are sharded across the
 ``model`` mesh axis; lookups mask to the local shard and ``psum`` the partial
-gathers over ICI; retrieval takes a local top-k per shard then re-top-ks the
+gathers; retrieval takes a local top-k per shard then re-top-ks the
 gathered candidates (the classic distributed top-k merge).
 """
 
@@ -42,31 +42,24 @@ def sharded_lookup(mesh: Mesh, table, indices, model_axis: str = "model"):
     )(table, indices)
 
 
-# shard-row threshold above which the local reduction routes through the
-# PartialReduce+peel hybrid instead of a dense [B, N_local] sort (tests lower
-# this to exercise the hybrid path on small fixtures)
-HYBRID_MIN_SHARD_ROWS = 1 << 16
-
-
 def sharded_topk(mesh: Mesh, queries, items, k: int, model_axis: str = "model",
-                 metric: str = "dot"):
+                 metric: str = "dot", interpret: bool = False):
     """Distributed top-k: local top-k per item shard, all_gather the
     k-candidates, re-top-k.  queries [B, D] replicated; items [N_padded, D]
     row-sharded.  Returns (scores [B, k], global indices [B, k]).
 
-    Large shards run the local reduction through
-    :func:`otto_tpu.ops.retrieval.topk_hybrid` (PartialReduce + pallas peel)
-    instead of materializing the [B, N_local] score matrix and full-sorting
-    it with ``lax.top_k``."""
+    Shards large enough for :func:`otto_tpu.ops.retrieval.topk_blocked`
+    (``blocked_fits``) take it as the local reduction; smaller ones score
+    the [B, N_local] matrix densely and ``lax.top_k`` it.  ``interpret``
+    runs the blocked path's kernel in interpret mode (tests only)."""
+    from otto_tpu.ops.retrieval import blocked_fits, topk_blocked
 
     def local(q, item_shard):
         m = jax.lax.axis_index(model_axis)
         rows_per = item_shard.shape[0]
-        if rows_per >= HYBRID_MIN_SHARD_ROWS:
-            from otto_tpu.ops.retrieval import topk_hybrid
-
-            loc_s, loc_i = topk_hybrid(q, item_shard, k=k, metric=metric,
-                                       tile=min(256, q.shape[0]))
+        if blocked_fits(rows_per, k):
+            loc_s, loc_i = topk_blocked(q, item_shard, k=k, metric=metric,
+                                        interpret=interpret)
             loc_i = jnp.maximum(loc_i, 0)  # dead slots carry NEG scores
         else:
             s = jnp.dot(q, item_shard.T, preferred_element_type=jnp.float32)

@@ -290,7 +290,7 @@ def main(argv=None):
                         help="model YAML (sequence / embedding_knn / doc2vec / two_stage ranker)")
     parser.add_argument("--ranker", choices=["tower", "gbdt"], default="tower",
                         help="two_stage reranking engine: listwise MLP tower or the "
-                             "TPU-native histogram GBDT (the reference's LightGBM stage)")
+                             "histogram GBDT (the reference's LightGBM stage)")
     parser.add_argument("--test-events", default=None,
                         help="submission mode: separate test events file to predict "
                              "(the reference's train.jsonl/test.jsonl split); defaults "

@@ -44,8 +44,8 @@ from otto_tpu.models.ranker import RankerData, RankerModel, top_k_predictions, t
 
 def _train_engine(data: RankerData, cfg, eval_recall, device=None):
     """Dispatch on config type: RankerConfig -> listwise tower,
-    GBDTConfig -> TPU-native histogram GBDT (the reference's LightGBM
-    engine re-implemented, models/gbdt.py).  ``device`` routes the GBDT
+    GBDTConfig -> histogram GBDT (the reference's LightGBM engine
+    re-implemented, models/gbdt.py).  ``device`` routes the GBDT
     fit's jitted passes to a specific accelerator (committed inputs)."""
     if isinstance(cfg, GBDTConfig):
         return train_gbdt_ranker(data, cfg, eval_recall=eval_recall,
@@ -377,7 +377,7 @@ def run_two_stage(
                 target, matrices, stats_top, ft_neighbors=ft_neighbors,
                 chunk_sessions=chunk_sessions,
                 # on a CPU host the vectorized accumulators are both faster
-                # and tie-break-exact; the device kernels remain the TPU path
+                # and tie-break-exact; on an accelerator the device kernels
                 recency_host_f64=jax.default_backend() == "cpu",
                 covisit_host=jax.default_backend() == "cpu",
             )
@@ -630,16 +630,10 @@ def predict_two_stage(
         model = artifacts.rankers[etype]
 
         def _predict(m):
-            # only the GBDT engine takes a device route (its forest pass is
-            # link-cheap: uint8 binned rows); the tower predicts in place
+            # only the GBDT engine takes a device route; the tower predicts
+            # in place
             if predict_device is not None and hasattr(m, "predict_binned_folds"):
-                try:
-                    return m.predict(X, mask, device=predict_device)
-                except Exception as e:  # accelerator unavailable mid-run
-                    log.warning("device forest predict failed (%s: %s); "
-                                "falling back to the default backend",
-                                type(e).__name__, e)
-                    return m.predict(X, mask)
+                return m.predict(X, mask, device=predict_device)
             return m.predict(X, mask)
 
         scores = _predict(model)

@@ -8,7 +8,7 @@ Here the training loop gets an explicit guard:
   (device-side; fetches a single scalar, cheap over slow host links).
 - :class:`TrainingGuard` — wraps a :class:`~otto_tpu.utils.checkpoint.
   CheckpointManager`: checkpoints every ``save_every`` steps, and on a
-  non-finite loss / state (TPU training's dominant soft failure — overflow,
+  non-finite loss / state (accelerator training's dominant soft failure — overflow,
   bad batch, or a flipped bit) rolls back to the last good checkpoint and
   replays from there.  A *deterministic* NaN (same batch order replayed)
   recurs until ``max_rollbacks`` raises — reshuffle or skip the offending

@@ -1,10 +1,10 @@
-"""Roofline accounting: what fraction of the chip's speed of light a
+"""Roofline accounting: what fraction of the card's published peaks a
 measured kernel achieves (SURVEY §7 M6 — per-kernel roofline checks).
 
-Peaks are per chip.  The byte/FLOP counts are the *caller's* model of the
-kernel (documented at each call site); fractions are therefore estimates of
-the achieved-vs-peak ratio under that model, not hardware counters — use
-``jax.profiler`` traces when exact numbers matter.
+Peaks are per card, keyed by ``device_kind``.  The byte/FLOP counts are the
+*caller's* model of the kernel (documented at each call site); fractions are
+therefore estimates of the achieved-vs-peak ratio under that model, not
+hardware counters — use ``jax.profiler`` traces when exact numbers matter.
 """
 
 from __future__ import annotations
@@ -14,54 +14,35 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class ChipPeaks:
-    hbm_gbps: float  # HBM bandwidth, GB/s
-    bf16_tflops: float  # MXU peak, bf16 inputs / f32 accumulate
-    f32_tflops: float  # MXU peak with f32 inputs
+    hbm_gbps: float  # device-memory bandwidth, GB/s
+    bf16_tflops: float  # tensor-core peak, bf16 inputs / f32 accumulate, dense
+    f32_tflops: float  # tensor-core peak with f32 inputs (TF32), dense
 
 
-# public spec-sheet numbers
+# NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit
 PEAKS = {
-    "v5e": ChipPeaks(hbm_gbps=819.0, bf16_tflops=197.0, f32_tflops=49.0),
-    "v4": ChipPeaks(hbm_gbps=1228.0, bf16_tflops=275.0, f32_tflops=69.0),
-    "v5p": ChipPeaks(hbm_gbps=2765.0, bf16_tflops=459.0, f32_tflops=115.0),
+    "NVIDIA H100 80GB HBM3": ChipPeaks(hbm_gbps=3350.0, bf16_tflops=989.0,
+                                       f32_tflops=495.0),
 }
 
 
-def chip_peaks(device=None) -> ChipPeaks:
-    """Best-effort peak lookup from the jax device kind (defaults to v5e,
-    this project's target part)."""
-    kind = ""
-    if device is not None:
-        kind = getattr(device, "device_kind", "") or ""
-    kind = kind.lower()
-    for key, peaks in PEAKS.items():
-        if key in kind.replace(" ", "").replace("lite", "e").replace("tpuv", "v"):
-            return peaks
-    if "v5 lite" in kind or "v5lite" in kind.replace(" ", ""):
-        return PEAKS["v5e"]
-    return PEAKS["v5e"]
+def chip_peaks(device) -> ChipPeaks:
+    """Peaks of ``device`` (a jax device) by its ``device_kind``; a kind
+    missing from :data:`PEAKS` is an error, never a default."""
+    kind = getattr(device, "device_kind", None)
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[kind]
 
 
-MXU_K = 128  # systolic-array contraction depth per pass
-
-
-def roofline(seconds: float, *, hbm_bytes: float = 0.0, bf16_flops: float = 0.0,
-             f32_flops: float = 0.0, k_dim: int | None = None,
-             device=None) -> dict:
+def roofline(seconds: float, *, device, hbm_bytes: float = 0.0,
+             bf16_flops: float = 0.0, f32_flops: float = 0.0) -> dict:
     """Achieved rates and fractions-of-peak for one measured kernel call.
 
-    Returns {"hbm_gbps", "hbm_frac", "tflops", "mxu_frac", "bound"} — the
+    Returns {"hbm_gbps", "hbm_frac", "tflops", "tc_frac", "bound"} — the
     binding resource is whichever fraction is highest (a kernel below ~0.5
-    on both is latency/VPU-bound or under-shaped for the hardware).
-
-    With ``k_dim`` (the matmul contraction depth) the dict also carries the
-    *achievable-bound* accounting: the MXU processes K=128 per pass
-    regardless of the operand's K, so a K=34 matmul can reach at most
-    34/128 of spec-sheet peak — no kernel schedule recovers it.
-    ``light_s`` is the speed-of-light time under that derate
-    (max of HBM-stream time and derated-MXU time) and ``light_frac`` the
-    measured kernel's fraction of it: the honest headroom number for
-    narrow-contraction workloads like d=32 embedding retrieval.
+    on both is latency-bound or under-shaped for the hardware).
     """
     peaks = chip_peaks(device)
     out: dict = {}
@@ -71,15 +52,6 @@ def roofline(seconds: float, *, hbm_bytes: float = 0.0, bf16_flops: float = 0.0,
     tflops = (bf16_flops + f32_flops) / seconds / 1e12 if seconds > 0 else 0.0
     peak_t = peaks.bf16_tflops if bf16_flops >= f32_flops else peaks.f32_tflops
     out["tflops"] = round(tflops, 2)
-    out["mxu_frac"] = round(tflops / peak_t, 4)
-    out["bound"] = "hbm" if out["hbm_frac"] >= out["mxu_frac"] else "mxu"
-    if k_dim is not None and seconds > 0:
-        derate = min(k_dim, MXU_K) / MXU_K
-        hbm_s = hbm_bytes / (peaks.hbm_gbps * 1e9)
-        mxu_s = (bf16_flops + f32_flops) / (peak_t * derate * 1e12)
-        light_s = max(hbm_s, mxu_s)
-        out["k_dim"] = int(k_dim)
-        out["light_s"] = round(light_s, 6)
-        out["light_frac"] = round(light_s / seconds, 4)
-        out["light_bound"] = "hbm" if hbm_s >= mxu_s else "mxu"
+    out["tc_frac"] = round(tflops / peak_t, 4)
+    out["bound"] = "hbm" if out["hbm_frac"] >= out["tc_frac"] else "tensor"
     return out

@@ -283,7 +283,7 @@ def test_sgns_device_pipeline_learns_cluster_structure():
 
 
 def test_sgns_device_shared_negatives_learns():
-    """The shared-negative MXU formulation (neg >= 16 default) learns the
+    """The shared-negative matmul formulation (neg >= 16 default) learns the
     same cluster structure as per-pair negatives."""
     rng = np.random.default_rng(1)
     S, L, n_clusters, per = 2000, 10, 4, 10
@@ -298,7 +298,7 @@ def test_sgns_device_shared_negatives_learns():
     out = {}
     model = train_sgns_device(es, n_aids=n_aids, config=cfg,
                               steps_per_dispatch=8, pairs_out=out)
-    assert out["shared_negatives"] >= 20  # the MXU path actually engaged
+    assert out["shared_negatives"] >= 20  # the matmul path actually engaged
     emb = model.embeddings
     assert np.isfinite(emb).all()
     din, dout = [], []

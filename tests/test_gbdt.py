@@ -1,4 +1,4 @@
-"""TPU-native histogram GBDT: binning, split search vs a numpy oracle,
+"""Histogram GBDT: binning, split search vs a numpy oracle,
 lambdarank gradients vs autodiff, end-to-end ranking quality, and the k-fold
 protocol + persistence (reference semantics: src/ranker/lgb_trainer.py)."""
 

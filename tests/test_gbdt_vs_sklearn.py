@@ -1,7 +1,7 @@
 """GBDT ranking quality vs a real histogram-GBDT control (sklearn
 HistGradientBoosting) on identical binned data.
 
-VERDICT round-1 weakness 5: the TPU forest had never been compared against an
+VERDICT round-1 weakness 5: the forest had never been compared against an
 established GBDT on the *model* level.  Here both engines consume the same
 uint8 bin matrix (our quantile binner), train on the same sessions with the
 same labels, and are scored with MAP@20 + corpus recall@20 on held-out

@@ -8,8 +8,8 @@ agreement of the emitted prediction lists (ties between equal float weights
 may legally resolve differently across f32/f64 summation orders, so the bar
 is a high exact-match fraction plus recall equality, not 100% list identity).
 
-The realistic-scale version of this comparison is ``tools/parity_run.py``
-(VERDICT.md round-1 item 1); its numbers live in REPORT.md.
+The realistic-scale version of this comparison is ``tools/parity_run.py``;
+its CPU-run numbers live in ``PARITY_*.json``.
 """
 
 import numpy as np

@@ -242,32 +242,38 @@ def test_ranker_mesh_predict_matches_single_device():
     np.testing.assert_allclose(single, parallel, rtol=2e-4, atol=2e-4)
 
 
-def test_sharded_topk_hybrid_local_path(monkeypatch):
-    """Force the hybrid local reduction on small shards and check it agrees
-    with the dense path / brute force."""
-    import jax.numpy as jnp
-
-    from otto_tpu.config import MeshConfig
+@pytest.mark.parametrize("metric", ["dot", "euclidean"])
+def test_sharded_topk_blocked_local_path(monkeypatch, metric):
+    """Shards routed to the blocked path (kernel in interpret mode) merge to
+    the same top-k as each shard's own blocked top-k, with exact scores."""
+    import otto_tpu.ops.retrieval as R
     from otto_tpu.parallel import sharded_embedding as se
-    from otto_tpu.parallel.mesh import make_mesh, shard_rows
 
-    monkeypatch.setattr(se, "HYBRID_MIN_SHARD_ROWS", 1)
-
+    monkeypatch.setattr(R, "blocked_fits", lambda rows, k: True)
     rng = np.random.default_rng(4)
-    n_dev = min(4, len(jax.devices()))
-    mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=n_dev),
-                     devices=jax.devices()[:n_dev])
-    N, D = 2048 * n_dev, 16
-    items = rng.normal(size=(N, D)).astype(np.float32)
+    n_dev = len(jax.devices())
+    mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=n_dev))
+    rows, D, k = 1024, 16, 5
+    items = rng.normal(size=(rows * n_dev, D)).astype(np.float32)
     q = rng.normal(size=(8, D)).astype(np.float32)
-    tbl = shard_rows(mesh, items)
-    s, i = se.sharded_topk(mesh, jnp.asarray(q), tbl, k=5, metric="dot")
+    s, i = se.sharded_topk(mesh, jnp.asarray(q), shard_rows(mesh, items), k=k,
+                           metric=metric, interpret=True)
     s, i = np.asarray(s), np.asarray(i)
-    exact = np.argsort(-(q @ items.T), axis=1)[:, :5]
-    hits = sum(len(set(map(int, a)) & set(map(int, e))) for a, e in zip(i, exact))
-    assert hits / i.size >= 0.9
-    np.testing.assert_allclose(s, np.take_along_axis(q @ items.T, i, axis=1),
-                               rtol=1e-5, atol=1e-5)
+    # reference: each shard's blocked top-k, merged on the host
+    cand_s, cand_i = [], []
+    for m in range(n_dev):
+        ls, li = R.topk_blocked(q, items[m * rows:(m + 1) * rows], k=k,
+                                metric=metric, reference=True)
+        cand_s.append(np.asarray(ls))
+        cand_i.append(np.asarray(li) + m * rows)
+    cand_s, cand_i = np.concatenate(cand_s, 1), np.concatenate(cand_i, 1)
+    order = np.argsort(-cand_s, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(i, np.take_along_axis(cand_i, order, 1))
+    full = q @ items.T
+    if metric == "euclidean":
+        full = 2 * full - np.sum(items**2, axis=1)[None, :]
+    np.testing.assert_allclose(s, np.take_along_axis(full, i, axis=1),
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_sharded_mf_step_matches_numpy_oracle(mesh_2x4):

@@ -1,44 +1,44 @@
 """Roofline accounting math (utils/roofline.py)."""
 
+import pytest
+
 from otto_tpu.utils.roofline import PEAKS, chip_peaks, roofline
 
 
+class Card:
+    def __init__(self, kind):
+        self.device_kind = kind
+
+
+H100 = Card("NVIDIA H100 80GB HBM3")
+
+
 def test_roofline_fractions():
-    # 819 GB moved in 2 s on a v5e = 409.5 GB/s = 0.5 of peak
-    r = roofline(2.0, hbm_bytes=819e9)
-    assert r["hbm_gbps"] == 409.5
+    # 3350 GB moved in 2 s on an H100 = 1675 GB/s = 0.5 of peak
+    r = roofline(2.0, hbm_bytes=3350e9, device=H100)
+    assert r["hbm_gbps"] == 1675.0
     assert abs(r["hbm_frac"] - 0.5) < 1e-6
     assert r["bound"] == "hbm"
 
-    # 197 TFLOP of bf16 work in 2 s = half the MXU peak
-    r = roofline(2.0, bf16_flops=197e12)
-    assert abs(r["mxu_frac"] - 0.5) < 1e-6
-    assert r["bound"] == "mxu"
+    # 989 TFLOP of bf16 work in 2 s = half the tensor-core peak
+    r = roofline(2.0, bf16_flops=989e12, device=H100)
+    assert abs(r["tc_frac"] - 0.5) < 1e-6
+    assert r["bound"] == "tensor"
 
-    # f32 flops compare against the f32 peak
-    r = roofline(1.0, f32_flops=49e12)
-    assert abs(r["mxu_frac"] - 1.0) < 1e-6
-
-
-def test_chip_peaks_default():
-    assert chip_peaks(None) == PEAKS["v5e"]
-
-    class Fake:
-        device_kind = "TPU v5 lite"
-
-    assert chip_peaks(Fake()) == PEAKS["v5e"]
+    # f32 (TF32) flops compare against the TF32 peak
+    r = roofline(1.0, f32_flops=495e12, device=H100)
+    assert abs(r["tc_frac"] - 1.0) < 1e-6
 
 
-def test_roofline_light_frac_k_derate():
-    # K=32 derates the bf16 MXU peak to 197/4 = 49.25 TFLOP/s; 49.25 TFLOP of
-    # work then takes 1 s at speed-of-light.  Measured at 2 s -> light_frac 0.5.
-    r = roofline(2.0, hbm_bytes=1e9, bf16_flops=49.25e12, k_dim=32)
-    assert r["light_bound"] == "mxu"
-    assert abs(r["light_s"] - 1.0) < 1e-3
-    assert abs(r["light_frac"] - 0.5) < 1e-3
+def test_chip_peaks_h100_lookup():
+    p = chip_peaks(H100)
+    assert p == PEAKS["NVIDIA H100 80GB HBM3"]
+    assert (p.hbm_gbps, p.bf16_tflops, p.f32_tflops) == (3350.0, 989.0, 495.0)
 
-    # when HBM streaming dominates the bound, light_bound flips
-    r = roofline(2.0, hbm_bytes=1638e9, bf16_flops=1e12, k_dim=128)
-    assert r["light_bound"] == "hbm"
-    assert abs(r["light_s"] - 2.0) < 1e-3
-    assert abs(r["light_frac"] - 1.0) < 1e-3
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", None])
+def test_chip_peaks_unknown_kind_raises(kind):
+    with pytest.raises(KeyError, match="no published peaks"):
+        chip_peaks(Card(kind))
+    with pytest.raises(KeyError):
+        roofline(1.0, hbm_bytes=1.0, device=Card(kind))

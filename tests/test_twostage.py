@@ -152,7 +152,7 @@ def test_run_two_stage_stage_resume(tmp_path):
 
 def test_gbdt_engine_in_two_stage(tmp_path):
     """The GBDT engine (the reference's actual LightGBM stage, re-implemented
-    on TPU) slots into the pipeline interchangeably with the tower, and its
+    in JAX) slots into the pipeline interchangeably with the tower, and its
     artifacts round-trip through save/load + submission-mode prediction."""
     from otto_tpu.config import GBDTConfig
     from otto_tpu.models.gbdt import GBDTRankerModel

@@ -55,10 +55,6 @@ def main() -> int:
     ap.add_argument("--out", type=str, default="PARITY_FEATURES.json")
     args = ap.parse_args()
 
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
     from otto_tpu.data.splits import split_by_time
     from otto_tpu.data.synthetic import synthetic_events_v2
     from otto_tpu.eval import feature_oracle as fo

@@ -6,14 +6,14 @@ split:
 
 1. the covisitation heuristic (strongest non-ranker reference model),
 2. the candidate generator's prior ordering (top-20 by candidate score),
-3. the two-stage pipeline with the TPU-native GBDT reranker (pure model), and
+3. the two-stage pipeline with the histogram GBDT reranker (pure model), and
 4. the same with the prior blend,
 against the candidate ceiling.  The reference's whole L6 rationale is that
 the GBDT beats the candidate ordering (src/ranker/lgb_trainer.py:156-198);
 this run demonstrates the same lift in this framework.
 
 Usage: python tools/reranker_lift.py [--sessions 120000] [--aids 12000]
-       [--platform tpu|cpu] [--out /tmp/lift.json]
+       [--out /tmp/lift.json]
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-import os
 
 import numpy as np
 
@@ -36,19 +35,14 @@ def main() -> int:
     ap.add_argument("--sessions", type=int, default=120_000)
     ap.add_argument("--aids", type=int, default=12_000)
     ap.add_argument("--val-fraction", type=float, default=0.15)
-    ap.add_argument("--platform", type=str, default="")
     ap.add_argument("--trees", type=int, default=300)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default="/tmp/lift.json")
     args = ap.parse_args()
 
-    if args.platform == "cpu":
-        os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "")
-    import jax
+    from otto_tpu.utils.runtime import enable_compilation_cache
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.jax_cache"))
+    enable_compilation_cache()
 
     from otto_tpu import EVENT_TYPES, TOP_K
     from otto_tpu.config import GBDTConfig
